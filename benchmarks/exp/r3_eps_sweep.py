@@ -1,5 +1,5 @@
 """WENO-eps / weight-flavor sweep for the 128^2 two_Gaussians_low_B
-energy-GAIN miss (r3 VERDICT item 1 continuation).
+energy-GAIN miss.
 
 Budget attribution (r3_budget_any.py) shows the drift is entirely the
 Lorentz-work vs induction-energy mismatch netting POSITIVE from t~3. At

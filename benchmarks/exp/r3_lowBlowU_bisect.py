@@ -1,4 +1,4 @@
-"""Bisect the 64^2 low_B_low_U energy-deviation miss (VERDICT r2 item 1b).
+"""Bisect the 64^2 low_B_low_U energy-deviation miss.
 
 Hypothesis: the background-split (state.A = perturbation) changes WENO's
 *nonlinear smoothness weights* relative to the reference, which advects the

@@ -1,5 +1,5 @@
 """r5: attribute (or close) the residual 64^2 low_B_low_U envelope gap
-(VERDICT r4 item 2): ours 1.84 (jac) / 2.32 (cons) vs recorded 0.78/1.03.
+ours 1.84 (jac) / 2.32 (cons) vs recorded 0.78/1.03.
 
 r3 took this case from 6.0 to 1.84 (WENO-Z weights + reference-style
 functionals, VALIDATION.md "root cause" section) and exonerated walls

@@ -1,6 +1,6 @@
 """Quantitative movie parity: per-frame similarity scores vs the reference.
 
-VERDICT r3 item 5: the 12 `compare_*.png` artifacts were eyeball-only.
+The 12 `compare_*.png` artifacts alone are eyeball-only.
 This script scores every scenario movie numerically against the
 reference's recorded mp4s (`/root/reference/simulation_runs/*/*.mp4`,
 SURVEY §2.1 C9) and writes the scores into

@@ -1,8 +1,9 @@
 """Shared scenario anchors + acceptance logic for the validation drivers.
 
-Split out of validate_reference.py (r4) so the TPU f32/fused validation
-(validate_tpu_fused.py) can reuse the identical anchor table and judge
-without importing validate_reference's module-level jax CPU config.
+Split out of validate_reference.py so the GPU f32 validation
+(validate_gpu.py, and phase 5 of chip_smoke.py) can reuse the identical
+anchor table and judge without importing validate_reference's
+module-level jax CPU config.
 
 Anchors are transcribed from the reference's recorded energy plots
 (/root/reference/energy_plots/<formulation>/<scenario>.png, SURVEY §2.1

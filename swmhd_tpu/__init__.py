@@ -1,13 +1,13 @@
-"""swmhd_tpu — TPU-native shallow-water magnetohydrodynamics framework.
+"""swmhd_tpu — shallow-water magnetohydrodynamics framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
-reference SWMHD stack (writingindy/SWMHD + the Oceananigans.jl subset it
-stands on): staggered C-grid operators, WENO5 advection, vector-invariant and
+A from-scratch JAX/XLA re-design with the capabilities of the reference
+SWMHD stack (writingindy/SWMHD + the Oceananigans.jl subset it stands on):
+staggered C-grid operators, WENO5 advection, vector-invariant and
 conservative shallow-water formulations, jacobian- and divergence-form
 Lorentz forcing, RK3 time stepping, simulation driver with callbacks and
-output writers, energy diagnostics — plus what the reference lacks: fused
-Pallas stencil kernels, 2-D domain decomposition with ICI halo exchange, and
-checkpoint/resume.
+output writers, energy diagnostics — plus what the reference lacks: 2-D
+domain decomposition over several GPUs with halo exchange, and
+checkpoint/resume. It runs on an NVIDIA GPU through XLA.
 """
 
 from .grid import Grid, PERIODIC, BOUNDED

@@ -1,6 +1,6 @@
 """Advection schemes: centered, 3rd-order upwind-biased, and WENO5.
 
-TPU-native re-design of the advection subset the reference uses:
+Array-form re-design of the advection subset the reference uses:
 
   - ``WENO5()`` for momentum/mass/tracer advection
     (reference: jacobian_formulation/SWMHD_example.jl:24-26,
@@ -205,7 +205,7 @@ def _degrade_y_f(r3, c, grid, left):
 _WENO_EPS = float(os.environ.get("SWMHD_WENO_EPS", "1e-8"))
 _GAMMA = (0.1, 0.6, 0.3)
 
-# f32 handling (r4, advisor item): the divide-free rational weights
+# f32 handling: the divide-free rational weights
 # multiply three (beta+eps)^2 factors, so their smallest term is O(eps^6)
 # = 1e-48 at eps=1e-8 — below the f32 subnormal range (0/0 = NaN on
 # constant fields). Instead of flooring eps at 1e-6 (which r3 root-caused
@@ -238,8 +238,7 @@ def _normalize_betas(b, eps):
 
     The scale only needs to be NEAR 1/sum, so f32 uses the exact
     power of two 2^-e (sum = m·2^e, m∈[1,2)) read straight off the
-    exponent bits: no divide (a multi-pass op on the TPU VPU — the 1/sum
-    form cost ~9% of the 4096² step, PERFORMANCE.md r4), and scaling by
+    exponent bits: no divide, and scaling by
     a power of two is EXACT in floating point, so the f32 weights sit at
     pure-roundoff distance from the f64 path's
     (tests/test_advection.py::TestF32Weights)."""
@@ -250,7 +249,7 @@ def _normalize_betas(b, eps):
         # >= 2^127 (fields ~1e19, already blown up) the difference would
         # underflow to +0.0, zeroing betas AND eps and turning the weight
         # combine into 0/0 = NaN where the old 1/s gave a subnormal scale
-        # (advisor r4). With the clamp the scale is merely too small and
+        # With the clamp the scale is merely too small and
         # the weights degrade gracefully toward the linear ones.
         inv = jax.lax.bitcast_convert_type(
             jnp.maximum(
@@ -335,9 +334,9 @@ _WENO_Z = os.environ.get("SWMHD_WENO_WEIGHTS", "z") == "z"
 # and the normalisation by (b0+eps)^2 (b1+eps)^2 (b2+eps)^2, turning the
 # 3 divides + normalisation divide into 1 divide + a handful of
 # multiplies. Algebraically the same rational function; floating-point
-# results differ at roundoff only. TPU VPU divides cost several
-# multiply-passes, so this is a large fraction of WENO runtime.
-# SWMHD_WENO_RATIONAL=0 restores the textbook evaluation.
+# results differ at roundoff only. Whether the saved divides pay on the
+# GPU is not measured yet. SWMHD_WENO_RATIONAL=0 restores the textbook
+# evaluation.
 _WENO_RATIONAL = os.environ.get("SWMHD_WENO_RATIONAL", "1") == "1"
 
 

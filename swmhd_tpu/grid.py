@@ -1,4 +1,4 @@
-"""Staggered Arakawa C-grid for the TPU-native shallow-water MHD framework.
+"""Staggered Arakawa C-grid for the shallow-water MHD framework.
 
 Re-designs the grid object the reference builds via Oceananigans'
 ``RectilinearGrid(size=(Nx,Ny), x=(-Lx/2,Lx/2), y=(-Ly/2,Ly/2),
@@ -9,8 +9,8 @@ divergence_formulation/divergence_sw_mhd.jl:12-14) as a JAX pytree.
 Unlike Oceananigans there are no halo cells in the stored arrays: the
 single-device reference implementation applies periodic topology with
 `jnp.roll`, and the distributed path (swmhd_tpu.parallel) materialises halos
-only inside the sharded step where they are exchanged over ICI with
-`lax.ppermute`.
+only inside the sharded step where they are exchanged between devices
+with `lax.ppermute`.
 
 Staggering convention (matches Oceananigans' 1-based faces, 0-based here):
 

@@ -30,7 +30,7 @@ class FieldWriter:
     Layout: ``<path>/<name>/<index:06d>.npy`` + ``<path>/meta.json`` with
     times and grid metadata.
 
-    Pod-safe (r5, VERDICT r4 item 2/missing #2): on a multi-process pod a
+    Multi-process-safe: with several processes a
     global ``jax.device_get`` per snapshot fails on the shards this
     process cannot address, so any output that is a non-fully-addressable
     ``jax.Array`` is written WITHOUT a gather as one

@@ -26,19 +26,17 @@ def time_dtype():
     otherwise (graceful degradation — x64-off environments canonicalize
     f64 away anyway).
 
-    Decoupled from the grid dtype (r5, VERDICT r4 item 6): at f32 the
+    Decoupled from the grid dtype: at f32 the
     accumulated ``t += dt`` drift reaches O(1e-2) absolute by t≈70, and
     the forcing-hook contract hands ``clock.time`` to user forcings (the
     array analog of the reference's ``clock`` argument,
     sw_mhd_jacobian_functions.jl:20-26). Under x64 (``--dtype float64``
-    runs, the CPU validation gate) the clock rides f64. x64-off TPU
+    runs, the CPU validation gate) the clock rides f64. x64-off f32
     production keeps an f32 clock but WITHOUT drift: every stepper
     reconstructs in-scan time as ``t0 + k*dt`` (single rounding) and the
     simulation driver re-syncs the clock from its exact host-side time
     between chunks, so the in-graph time stays within ~1 ulp of true —
-    the best an f32 scalar can represent. (Enabling x64 for f32 TPU runs
-    was tried and reverted: Pallas kernels fail to trace under x64 on
-    this TPU stack — see cli.py.)"""
+    the best an f32 scalar can represent."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 

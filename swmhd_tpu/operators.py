@@ -1,14 +1,14 @@
 """C-grid operator algebra, array form.
 
-TPU-native re-design of the Oceananigans.Operators subset the reference
+Array-form re-design of the Oceananigans.Operators subset the reference
 composes its physics from (imports at reference: test_example.jl:4; usage:
 divergence_formulation/sw_mhd_divergence_functions.jl:3-170,
 jacobian_formulation/sw_mhd_jacobian_functions.jl:1-26).
 
 The reference evaluates operators *per point* through nested closures
 (`ℑxᶜᵃᵃ(i,j,k,grid,∂xᶠᶜᶜ,A)`); here every operator is a pure whole-array
-function, composition happens at trace time, and XLA (or the fused Pallas
-kernel in swmhd_tpu.ops) does the scheduling. Periodic topology is a
+function, composition happens at trace time, and XLA does the fusion and
+scheduling. Periodic topology is a
 `jnp.roll`; bounded topology clamps the shift at the walls (halo-free
 edge replication), with the one-sided near-wall stencil degradation of the
 reference handled explicitly in `swmhd_tpu.advection`.
@@ -95,10 +95,8 @@ def get_index_ctx():
 
 
 def global_index_x(a) -> jnp.ndarray:
-    """Global x-index of every element of ``a`` (full-shape 2-D iota:
-    Mosaic rejects 1-D iota/arange+reshape, while a full-shape iota fuses
-    to zero cost in XLA and lowers natively in Pallas — this is what lets
-    the fused kernel run BOUNDED walls in-kernel)."""
+    """Global x-index of every element of ``a`` (a full-shape 2-D iota,
+    which XLA fuses into its consumers at no cost)."""
     idx = lax.broadcasted_iota(jnp.int32, a.shape, 0)
     ctx = _INDEX_CTX[0]
     return idx if ctx is None else idx + ctx.ox
@@ -122,9 +120,8 @@ def global_ny(grid: Grid) -> int:
 
 # -- shifts -------------------------------------------------------------------
 
-# Pluggable periodic-roll implementation. The default jnp.roll serves the
-# XLA path; swmhd_tpu.ops.fused_step swaps in pltpu.roll while tracing the
-# Pallas fused kernel (Mosaic has a native lane/sublane rotate).
+# Pluggable periodic-roll implementation: jnp.roll by default, swapped for
+# the pad-memo roll while a tendency is traced (pad_roll_scope).
 _ROLL = [jnp.roll]
 
 
@@ -138,10 +135,9 @@ def set_roll_impl(fn):
 def make_pad_roll(radius: int = 4):
     """Pad-once-per-(array, axis) roll: each distinct array that gets
     shifted is wrap-padded once (one concatenate); every shift of it is
-    then a ``lax.slice`` of the pad. Slices of a fusion parameter are free
-    indexed reads in XLA, whereas each materialised ``jnp.roll`` is a copy
-    — on TPU v5e this cuts the 2048² RK3 step from 12.3 to 7.8 ms (see
-    benchmarks/exp_padroll.py). Values are bitwise identical to jnp.roll.
+    then a ``lax.slice`` of the pad. Slices of a fusion parameter are
+    indexed reads in XLA, whereas each materialised ``jnp.roll`` can be a
+    copy. Values are bitwise identical to jnp.roll.
 
     The memo pins each base array so recycled ``id()``s cannot alias; use
     one hook per trace (see :func:`pad_roll_scope`) so pinned tracers are
@@ -168,8 +164,8 @@ def make_pad_roll(radius: int = 4):
 
 class pad_roll_scope:
     """Context manager installing a fresh pad-memo roll for one tendency
-    trace. A no-op when a specialised hook (the fused-kernel roll) is
-    already installed, so fast paths compose instead of fighting."""
+    trace. A no-op when another roll hook is already installed (a nested
+    scope keeps its parent's memo)."""
 
     def __init__(self, radius: int = 4):
         self.radius = radius
@@ -212,11 +208,10 @@ def _clamped_shift(a: jnp.ndarray, n: int, axis: int) -> jnp.ndarray:
     # shard_map-ped padded tile clamps at the true domain walls, not at its
     # own edges; interior shards never trigger the clamp).
     #
-    # Pure roll + where + slice form (no scatter, no 1-D iota) so the SAME
-    # code lowers in XLA, under shard_map, and inside the fused Pallas
-    # kernel — which is what gives the bounded-wall scenario class its
-    # fast path. The roll goes through the pluggable _ROLL hook so kernel
-    # and pad-memo roll dedup apply to bounded shifts too.
+    # Pure roll + where + slice form (no scatter) so the SAME code runs on
+    # a whole array and under shard_map. The roll goes through the
+    # pluggable _ROLL hook so the pad-memo roll dedup applies to bounded
+    # shifts too.
     ctx = _INDEX_CTX[0]
     rolled = _ROLL[0](a, -n, axis)
     gi = global_index_x(a) if axis == 0 else global_index_y(a)
@@ -273,8 +268,8 @@ def dy_c(a, grid):  # δyᵃᶜᵃ
 def dx_c_flux(f, grid):
     up = shift_x(f, 1, grid)
     if grid.topology_x == BOUNDED:
-        # zero the flux through the GLOBAL wall face (where-form: lowers
-        # in XLA, shard_map, and the fused Pallas kernel alike)
+        # zero the flux through the GLOBAL wall face (where-form: the same
+        # code on a whole array and under shard_map)
         up = jnp.where(global_index_x(up) == global_nx(grid) - 1,
                        0.0, up)
     return up - f

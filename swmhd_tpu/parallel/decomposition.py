@@ -1,15 +1,16 @@
-"""2-D domain decomposition over a device mesh with ICI halo exchange.
+"""2-D domain decomposition over a device mesh with halo exchange.
 
 This is the subsystem the reference entirely lacks (SURVEY §2.2 O14, §5):
-every reference script is single-process/single-device. The TPU-native
-scaling axis is grid size, decomposed over a ``jax.sharding.Mesh``:
+every reference script is single-process/single-device. The scaling axis
+is grid size, decomposed over a ``jax.sharding.Mesh``:
 
  - each device owns an (Nx/px, Ny/py) tile of every field;
  - a step is a ``shard_map``-ped function: per RK3 substage, each tile is
    padded with an H-cell halo ring fetched from its 4 mesh neighbors via
-   ``lax.ppermute`` (which XLA lowers to collective-permute over ICI on a
-   TPU slice, DCN across hosts), the *same* tendency code as the
-   single-device path runs on the padded tile, and the result is cropped;
+   ``lax.ppermute`` (which XLA lowers to a collective-permute, carried by
+   NCCL over NVLink between the GPUs of one host), the *same* tendency
+   code as the single-device path runs on the padded tile, and the result
+   is cropped;
  - H is the total composed stencil radius of one tendency evaluation
    (WENO5 reconstruction + flux divergence + Lorentz chain ⇒ 6 covers every
    scheme combination shipped here), so one exchange per substage suffices.
@@ -30,14 +31,10 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
-from ..grid import Grid, PERIODIC
+from ..grid import PERIODIC
 from ..models.state import State, Clock
 from ..models.shallow_water import ShallowWaterModel, RK3_GAMMA, RK3_ZETA
 
@@ -50,14 +47,10 @@ def make_mesh(n_devices: Optional[int] = None,
     """A 2-D ('x','y') mesh over the available devices. With no arguments,
     uses all devices in the squarest factorisation.
 
-    Device ordering goes through ``mesh_utils.create_device_mesh``
-    (VERDICT r4 item 7): on a TPU slice that maps mesh coordinates onto
-    the physical ICI torus so halo-exchange neighbors are ICI-adjacent —
-    the one mesh-layout job SURVEY §5 assigns this subsystem — instead of
-    ``jax.devices()`` enumeration order, which on a 2-D slice interleaves
-    torus rows and can put x-neighbors two hops apart. Falls back to
-    enumeration order where mesh_utils cannot derive coordinates (device
-    subsets without slice metadata, non-uniform collections)."""
+    Devices are laid out in ``jax.devices()`` order, row-major over
+    ('x','y'). The GPUs of one host are joined all to all by NVLink, so
+    every pair of mesh neighbours exchanges halos at the same rate and no
+    ordering is better than another."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
@@ -77,18 +70,7 @@ def make_mesh(n_devices: Optional[int] = None,
         while n % px:
             px -= 1
         shape = (px, n // px)
-    try:
-        from jax.experimental import mesh_utils
-        dev_array = mesh_utils.create_device_mesh(
-            shape, devices=list(devices))
-    except Exception as e:
-        import logging
-        logging.warning(
-            "make_mesh: mesh_utils.create_device_mesh failed (%s); "
-            "falling back to enumeration-order device layout — halo "
-            "neighbors may not be ICI-adjacent", e)
-        dev_array = np.asarray(devices).reshape(shape)
-    return Mesh(dev_array, (AXIS_X, AXIS_Y))
+    return Mesh(np.asarray(devices).reshape(shape), (AXIS_X, AXIS_Y))
 
 
 def _halo_pad_axis(a, H: int, axis_name: str, array_axis: int, n_shards: int,
@@ -130,8 +112,8 @@ def _halo_pad_axis(a, H: int, axis_name: str, array_axis: int, n_shards: int,
 class DomainDecomposition:
     """Shards a ShallowWaterModel's step over a 2-D device mesh.
 
-    With ``overlap=True`` the tendency is split so the halo exchange rides
-    the ICI concurrently with interior compute (SURVEY §5): the interior of
+    With ``overlap=True`` the tendency is split so the halo exchange runs
+    concurrently with interior compute (SURVEY §5): the interior of
     each tile (every point ≥ halo from the edge) is computed from the
     *unpadded* tile — it depends on no exchanged data, so XLA's async
     collective scheduler can run the ``ppermute``s underneath it — and only
@@ -293,177 +275,6 @@ class DomainDecomposition:
                                for f, g_, gp in zip(fields, G, G_prev))
             G_prev = G
         return (*fields, t + dt, it + 1)
-
-    # -- fused (Pallas) sharded step ---------------------------------------------
-
-    def fused_step_fn(self, dt, n_steps: int = 1, interpret: bool = False,
-                      tile_x: Optional[int] = None, diagnostics=None):
-        """Sharded stepper whose per-substage tendency+update runs the
-        fused Pallas kernel on each exchanged padded tile (BASELINE
-        ladder rung 4: multi-chip grids with fast stencils).
-
-        Per RK3 substage: ppermute halo exchange (width ``halo``, must be
-        8-aligned for Mosaic DMA alignment and ≥ the composed substage
-        radius), then ONE `ops.fused_step.build_fused_calls` kernel over
-        the padded tile — the tile plays the role the global array plays
-        on a single chip: the kernel's own x-window pad is carved from
-        the exchanged ring (He == the kernel's H), its periodic y-rolls
-        wrap the padded width so garbage enters only a ring < substage
-        radius wide at the pad edge, and the crop back to the unpadded
-        tile discards it. Arithmetic per interior point is identical to
-        the single-device fused path (tests/test_parallel.py pins
-        sharded-fused == single-device-XLA in interpret mode).
-
-        Requires periodic x; y may additionally be BOUNDED when the y
-        mesh axis is unsharded (py == 1): each tile then holds complete
-        y rows, so the kernel's in-row wall machinery is exact with
-        local == global indices, exactly as on a single chip (r4,
-        VERDICT item 2). ``diagnostics`` follows the ``step_fn``
-        contract: in-graph per-step scalar series, reductions over the
-        sharded global state.
-
-        nx per tile must be divisible by 8 (Mosaic sublane alignment)."""
-        from ..ops.fused_step import (
-            build_fused_calls, DEFAULT_HALO, SUBSTAGE_RADIUS)
-
-        g = self.model.grid
-        if g.topology_x != PERIODIC:
-            raise ValueError("fused sharded step: periodic x required")
-        y_sharded = self.py > 1
-        if y_sharded and g.topology_y != PERIODIC:
-            raise ValueError(
-                "fused sharded step: BOUNDED y needs the y mesh axis "
-                "unsharded (py == 1) so each tile holds complete rows; "
-                f"got py={self.py}")
-        He = self.halo
-        if He % 8 or He < SUBSTAGE_RADIUS:
-            raise ValueError(
-                f"fused sharded step needs an 8-aligned halo >= "
-                f"{SUBSTAGE_RADIUS} (got {He}); construct the "
-                f"DomainDecomposition with halo=8")
-        nx, ny = self.nx, self.ny
-        LANE = 128
-        if y_sharded:
-            # Mosaic HBM window DMAs require the minor (lane) dim of the
-            # sliced memref 128-aligned; round the padded tile width up
-            # with dead columns. The kernel's periodic y-rolls then wrap
-            # garbage into a ring < substage-radius wide at BOTH pad
-            # edges; the crop margin He (>= 8 > 6) keeps the interior
-            # clear of it.
-            ny_pad = ny + 2 * He
-            ny_k = ((ny_pad + LANE - 1) // LANE) * LANE
-            topo_y = PERIODIC
-        else:
-            # y unsharded: the tile holds the FULL y extent, so the
-            # kernel wraps (periodic) or applies walls (bounded) exactly
-            # as the single-chip fused path does — no y pad, no garbage.
-            if not interpret and ny % LANE:
-                raise ValueError(
-                    f"fused sharded step needs Ny % {LANE} == 0 when the "
-                    f"y axis is unsharded (Mosaic lane alignment); "
-                    f"Ny={ny}")
-            ny_pad = ny_k = ny
-            topo_y = g.topology_y
-        # the kernel's "global" grid is the unpadded tile extent in x and
-        # the PADDED extent in y (full rows resident per window)
-        tile_grid = dataclasses.replace(
-            g, Nx=nx, Ny=ny_k, Lx=g.dx * nx, Ly=g.dy * ny_k,
-            topology_y=topo_y)
-        tile_model = dataclasses.replace(self.model, grid=tile_grid)
-        calls, Tx, Hk = build_fused_calls(
-            tile_model, dt, tile_x=tile_x, halo=He, interpret=interpret)
-        assert Hk == He
-
-        def pad_x(a):
-            return _halo_pad_axis(a, He, AXIS_X, 0, self.px, True)
-
-        def local_step(h, u, v, A, t, it):
-            fields = (h, u, v, A)
-            G_prev = ()
-            for call in calls:
-                if y_sharded:
-                    padded = [jnp.pad(self._pad(f),
-                                      ((0, 0), (0, ny_k - ny_pad)))
-                              for f in fields]
-                else:
-                    padded = [pad_x(f) for f in fields]
-                tarr = t.reshape(1).astype(g.dtype)
-                out = call(tarr, *padded, *G_prev)
-                if y_sharded:
-                    fields = tuple(f[He:He + nx, He:He + ny]
-                                   for f in out[:4])
-                else:
-                    fields = tuple(f[He:He + nx, :] for f in out[:4])
-                G_prev = out[4:]
-            return (*fields, t + dt, it + 1)
-
-        fspec = self.field_spec
-
-        @partial(shard_map, mesh=self.mesh,
-                 in_specs=(fspec, fspec, fspec, fspec, P(), P()),
-                 out_specs=(fspec, fspec, fspec, fspec, P(), P()),
-                 check_vma=False)
-        def sharded_steps(h, u, v, A, t, it):
-            t0 = t  # reconstructed time (see step_fn's clock note)
-
-            def body(carry, k):
-                h, u, v, A, t, it = local_step(*carry)
-                t = t0 + (k + 1).astype(t0.dtype) * dt
-                return (h, u, v, A, t, it), None
-            out, _ = jax.lax.scan(body, (h, u, v, A, t, it),
-                                  jnp.arange(n_steps, dtype=jnp.int32))
-            return out
-
-        @partial(shard_map, mesh=self.mesh,
-                 in_specs=(fspec, fspec, fspec, fspec, P(), P()),
-                 out_specs=(fspec, fspec, fspec, fspec, P(), P()),
-                 check_vma=False)
-        def sharded_one(h, u, v, A, t, it):
-            return local_step(h, u, v, A, t, it)
-
-        def pack(parts):
-            h, u, v, A, t, it = parts
-            return State(h=h, u=u, v=v, A=A,
-                         clock=Clock(time=t, iteration=it))
-
-        if diagnostics is None:
-            def fn(state: State) -> State:
-                return pack(sharded_steps(
-                    state.h, state.u, state.v, state.A,
-                    state.clock.time, state.clock.iteration))
-            return fn
-
-        def fn(state: State):
-            t0 = state.clock.time
-
-            def body(s, k):
-                s2 = pack(sharded_one(s.h, s.u, s.v, s.A,
-                                      s.clock.time, s.clock.iteration))
-                s2 = s2.replace(clock=Clock(
-                    time=t0 + (k + 1).astype(t0.dtype) * dt,
-                    iteration=s2.clock.iteration))
-                return s2, diagnostics(s2)
-            out, series = jax.lax.scan(body, state,
-                                       jnp.arange(n_steps,
-                                                  dtype=jnp.int32))
-            return out, series
-        return fn
-
-    def fused_stepper(self, tile_x: Optional[int] = None,
-                      interpret: bool = False):
-        """Simulation-compatible stepper driving :meth:`fused_step_fn`
-        (the sharded analog of ``ops.fused_step.FusedStepper``): pass as
-        ``Simulation(model, ..., stepper=dd.fused_stepper())``."""
-        dd = self
-
-        class _FusedDDStepper:
-            model = dd.model
-
-            def step_fn(self, dt, n_steps: int = 1, diagnostics=None):
-                return dd.fused_step_fn(dt, n_steps, interpret=interpret,
-                                        tile_x=tile_x,
-                                        diagnostics=diagnostics)
-        return _FusedDDStepper()
 
     # -- public step -----------------------------------------------------------------
 

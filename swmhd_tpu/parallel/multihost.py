@@ -1,17 +1,15 @@
-"""Multi-host execution (SURVEY §7.2 M5; reference has nothing multi-node).
+"""Multi-process execution (SURVEY §7.2 M5; reference has nothing multi-node).
 
-On a multi-host TPU pod slice every host runs the same program;
-:func:`initialize` wires them into one JAX runtime over DCN, and the
-existing :class:`~swmhd_tpu.parallel.decomposition.DomainDecomposition`
-then spans all hosts' devices through the same ``Mesh`` + ``ppermute``
-machinery — XLA routes neighbor exchanges over ICI within a slice and DCN
-across slices. The mesh factory below orders devices so that ICI-adjacent
-chips land on adjacent mesh coordinates (jax.experimental.mesh_utils),
-keeping the 4-neighbor halo traffic off DCN wherever the torus allows.
+With several processes every process runs the same program;
+:func:`initialize` wires them into one JAX runtime, and the existing
+:class:`~swmhd_tpu.parallel.decomposition.DomainDecomposition` then spans
+all processes' devices through the same ``Mesh`` + ``ppermute`` machinery
+(NCCL between GPUs). The mesh lays devices out in ``jax.devices()`` order,
+which groups each process's devices together.
 
-Host-local I/O: each host owns the shards resident on its devices;
-:func:`process_local_slab` gives the global index range a host should
-write, so FieldWriter outputs can be sharded per host without gathers.
+Host-local I/O: each process owns the shards resident on its devices;
+:func:`process_local_slab` gives the global index range a process should
+write, so FieldWriter outputs can be sharded per process without gathers.
 """
 
 from __future__ import annotations
@@ -25,26 +23,21 @@ from jax.sharding import Mesh
 from .decomposition import AXIS_X, AXIS_Y
 
 
-def initialize(coordinator_address: Optional[str] = None,
-               num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
-    """`jax.distributed.initialize` with TPU auto-detection defaults.
+def initialize(coordinator_address: str, num_processes: int,
+               process_id: int) -> None:
+    """``jax.distributed.initialize`` for one process of ``num_processes``.
 
-    On Cloud TPU pods all arguments are discovered from the metadata
-    server; pass them explicitly for manual/DCN setups."""
-    kwargs = {}
-    if coordinator_address is not None:
-        kwargs.update(coordinator_address=coordinator_address,
-                      num_processes=num_processes, process_id=process_id)
-    jax.distributed.initialize(**kwargs)
+    Nothing discovers a cluster on its own, so all three arguments are
+    required; ``coordinator_address`` is ``host:port`` of process 0."""
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)
 
 
 def make_pod_mesh(shape: Optional[Tuple[int, int]] = None) -> Mesh:
-    """A 2-D ('x','y') mesh over ALL processes' devices with ICI-aware
-    device ordering. Since r5 this is the same factory as
-    ``decomposition.make_mesh`` (which routes through
-    ``mesh_utils.create_device_mesh``) — one mesh layout for CLI, bench,
-    dryrun, and pod runs (VERDICT r4 item 7)."""
+    """A 2-D ('x','y') mesh over ALL processes' devices — the same
+    factory as ``decomposition.make_mesh``, so CLI, bench, dry run and
+    multi-process runs share one mesh layout."""
     from .decomposition import make_mesh
 
     return make_mesh(shape=shape)
@@ -69,9 +62,9 @@ def array_local_slab(arr):
     cross-host gather: ``bounds = (x0, x1, y0, y1)`` global indices,
     ``data`` the assembled host ndarray.
 
-    This is the array-level primitive behind pod-scale I/O
-    (checkpoint.save_sharded, io.writers.FieldWriter): on a multi-process
-    pod ``jax.device_get`` fails on non-addressable shards, so each
+    This is the array-level primitive behind multi-process I/O
+    (checkpoint.save_sharded, io.writers.FieldWriter): with several
+    processes ``jax.device_get`` fails on non-addressable shards, so each
     process extracts exactly its own slab. Unlike
     :func:`process_local_slab` it derives bounds from the array's actual
     sharding, so it also covers derived outputs whose sharding was chosen

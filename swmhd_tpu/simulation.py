@@ -4,7 +4,7 @@ The analog of Oceananigans' ``Simulation(model, Δt, stop_time)`` + ``run!``
 + ``Callback``/``IterationInterval``/``TimeInterval`` machinery the reference
 drives every experiment with (jacobian_formulation/SWMHD_example.jl:42-97).
 
-TPU-first structure (SURVEY §3.3): the hot loop is a jit-compiled
+Accelerator-first structure (SURVEY §3.3): the hot loop is a jit-compiled
 ``lax.scan`` over RK3 steps; the driver advances in *chunks* sized so that no
 schedule event falls inside a chunk, then fires callbacks/writers between
 chunks. Nothing in the step graph touches the host.
@@ -53,7 +53,7 @@ class TimeInterval:
     STATELESS (r4): due-ness is derived purely from the clock, so a
     checkpoint-resumed run fires the same events as an uninterrupted one
     (the r3 host-side ``_next`` cursor re-fired or skipped events on
-    restore — VERDICT r3 weak #6). The driver always lands within Δt/2 of
+    restore). The driver always lands within Δt/2 of
     an event (``steps_until_due`` sizes chunks that way), so "due" ==
     "within Δt/2 of a multiple of the interval"."""
 

@@ -14,7 +14,7 @@ import pytest
 from swmhd_tpu import Grid, ShallowWaterModel, FPlane, VECTOR_INVARIANT
 from swmhd_tpu.advection import (
     weno5_left_x_f, weno5_right_x_f, left3_x_f, Centered2, WENO5)
-from tests.conftest import convergence_order
+from conftest import convergence_order
 
 
 class TestReconstructionOrder:
@@ -68,7 +68,7 @@ class TestReconstructionOrder:
 
 
 class TestWenoZLiterature:
-    """Anchor-independent pins of the WENO-Z flavor (VERDICT r3 item 6):
+    """Anchor-independent pins of the WENO-Z flavor:
     the r3 eps/Z calibration was validated against plot-transcribed
     anchors only; these assert the *published* WENO-Z behaviors (Borges,
     Carmona, Costa & Don 2008, JCP 227:3191; Henrick, Aslam & Powers
@@ -141,7 +141,7 @@ class TestWenoZLiterature:
 
 
 class TestF32Weights:
-    """r4 (advisor medium): f32 production must keep the eps=1e-8 WENO-Z
+    """f32 production must keep the eps=1e-8 WENO-Z
     weight semantics that r3 root-caused as decisive at >=128^2, where
     smooth-field betas are O(1e-6) and an eps floor of 1e-6 linearizes
     the nonlinear weights. The non-f64 path rescales (betas, eps) by the

@@ -101,8 +101,8 @@ def test_gravity_wave_reflects_not_wraps():
 
 
 def test_wall_adjacent_vorticity_flux_pinned():
-    """Golden regression of the WENO vorticity flux on a bounded-y grid
-    (advisor r3): the r3 shared-beta refactor changed near-wall values at
+    """Golden regression of the WENO vorticity flux on a bounded-y grid:
+    the r3 shared-beta refactor changed near-wall values at
     more than roundoff and was covered only by the statistical scenario
     envelopes — this pins the exact current values (fixture generated
     from the shipped implementation) so future refactors cannot silently

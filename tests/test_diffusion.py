@@ -1,4 +1,4 @@
-"""Diffusion-closure tests (VERDICT round-1 item 5).
+"""Diffusion-closure tests.
 
 The reference runs inviscid, so these closures have no reference
 counterpart to match — they are verified against analysis instead:

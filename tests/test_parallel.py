@@ -1,7 +1,7 @@
 """Distributed correctness: sharded == single-device (SURVEY §4e).
 
 Runs on the 8-virtual-CPU-device mesh from conftest — the fake-backend
-substitute for a TPU pod slice. Agreement of the shard_map + ppermute halo
+substitute for several GPUs. Agreement of the shard_map + ppermute halo
 path with the global roll path is this framework's race-detector analog.
 """
 
@@ -251,32 +251,6 @@ def test_halo_pad_matches_global_roll():
     np.testing.assert_array_equal(tile00, want)
 
 
-@pytest.mark.parametrize("formulation", [VECTOR_INVARIANT, CONSERVATIVE])
-def test_sharded_fused_matches_single_device(formulation):
-    """The fused Pallas substage kernel running per-tile inside shard_map
-    (interpret mode) == the single-device XLA step (VERDICT r2 item 3 —
-    BASELINE ladder rung 4's fast path)."""
-    if len(jax.devices()) < 4:
-        pytest.skip("not enough virtual devices")
-    model, state = build(formulation, N=64)
-    n_steps = 3
-    dt = 0.01
-
-    ref = jax.jit(model.step_fn(dt, n_steps))(state)
-
-    mesh = make_mesh(shape=(2, 2))
-    dd = DomainDecomposition(model, mesh, halo=8)
-    sharded0 = dd.shard_state(state)
-    out = jax.jit(dd.fused_step_fn(dt, n_steps, interpret=True))(sharded0)
-
-    for name in ("h", "u", "v", "A"):
-        a = np.asarray(getattr(ref, name))
-        b = np.asarray(jax.device_get(getattr(out, name)))
-        np.testing.assert_allclose(b, a, rtol=1e-12, atol=1e-12,
-                                   err_msg=f"fused-sharded {name}")
-    assert float(out.clock.time) == pytest.approx(n_steps * dt)
-
-
 def test_sharded_checkpoint_roundtrip(tmp_path):
     """save_sharded -> restore_sharded -> resume == uninterrupted on the
     8-device mesh (single process; the 2-process variant runs in
@@ -315,90 +289,52 @@ def test_sharded_checkpoint_roundtrip(tmp_path):
             err_msg=f"relayout {name}")
 
 
-def test_sharded_fused_bounded_y_matches_single_device():
-    """Bounded-y walls through the sharded fused path: legal when the y
-    mesh axis is unsharded (py == 1) — each tile holds complete rows, so
-    the kernel's in-row wall machinery is exact (VERDICT r3 item 2)."""
-    if len(jax.devices()) < 4:
-        pytest.skip("not enough virtual devices")
-    from swmhd_tpu import scenarios
-    model, state, sc = scenarios.build("64x64_low_B_low_U",
-                                       VECTOR_INVARIANT,
-                                       dtype=jnp.float64)
-    n_steps, dt = 3, sc.dt
-    ref = jax.jit(model.step_fn(dt, n_steps))(state)
+@pytest.mark.parametrize("n, shape", [(1, (1, 1)), (2, (1, 2)),
+                                      (4, (2, 2)), (8, (2, 4))])
+def test_make_mesh_order_and_shape(n, shape):
+    """make_mesh lays the first n devices out row-major in jax.devices()
+    order, in the squarest factorisation; make_pod_mesh is the same
+    factory."""
+    from swmhd_tpu.parallel import multihost
 
-    mesh = make_mesh(shape=(4, 1))
-    dd = DomainDecomposition(model, mesh, halo=8)
-    out = jax.jit(dd.fused_step_fn(dt, n_steps, interpret=True))(
+    mesh = make_mesh(n_devices=n)
+    assert mesh.axis_names == ("x", "y")
+    assert (mesh.shape["x"], mesh.shape["y"]) == shape
+    want = np.asarray(jax.devices()[:n]).reshape(shape)
+    assert np.array_equal(np.asarray(mesh.devices), want)
+    pod = multihost.make_pod_mesh(shape)
+    assert np.array_equal(np.asarray(pod.devices), want)
+
+
+@pytest.mark.parametrize("formulation", [VECTOR_INVARIANT, CONSERVATIVE])
+def test_sharded_series_bounded_y_matches_single_device(formulation):
+    """step_fn with a diagnostics series on a 2x2 mesh with walls in y:
+    final state AND per-step series equal the single-device step's."""
+    from swmhd_tpu import diagnostics
+
+    model, state = build_bounded(formulation, ("periodic", "bounded"),
+                                 N=32)
+    h0 = state.h
+
+    def diag(s):
+        rep = diagnostics.energy_report(model, s, h0)
+        return {"total_energy": rep["total_energy"],
+                "mass": jnp.sum(s.h)}
+
+    n_steps, dt = 4, 0.005
+    ref, ref_series = jax.jit(model.step_fn(dt, n_steps,
+                                            diagnostics=diag))(state)
+    dd = DomainDecomposition(model, make_mesh(shape=(2, 2)))
+    out, series = dd.step_fn(dt, n_steps, diagnostics=diag)(
         dd.shard_state(state))
     for name in ("h", "u", "v", "A"):
         np.testing.assert_allclose(
             np.asarray(jax.device_get(getattr(out, name))),
-            np.asarray(getattr(ref, name)),
-            rtol=1e-12, atol=1e-12, err_msg=f"fused-sharded bounded {name}")
-
-    # bounded y with a sharded y axis must be rejected loudly
-    dd2 = DomainDecomposition(model, make_mesh(shape=(2, 2)), halo=8)
-    with pytest.raises(ValueError, match="py == 1"):
-        dd2.fused_step_fn(dt, 1, interpret=True)
-
-
-def test_sharded_fused_with_series(tmp_path):
-    """dd.fused_stepper() drives a Simulation with in-graph scalar
-    series — final state AND series match the single-device XLA run
-    (VERDICT r3 item 2: the fused sharded path is Simulation-grade)."""
-    if len(jax.devices()) < 4:
-        pytest.skip("not enough virtual devices")
-    from swmhd_tpu import Simulation, IterationInterval, diagnostics
-    from swmhd_tpu.io import ScalarSeriesWriter
-
-    def run(stepper_factory, out, state, model):
-        h0 = state.h
-        sim = Simulation(model, dt=0.01, stop_iteration=4,
-                         stepper=stepper_factory() if stepper_factory
-                         else None)
-        sim.output_writers["energies"] = ScalarSeriesWriter(
-            fn=lambda m, s: {"te": diagnostics.energy_report(m, s, h0)
-                             ["total_energy"]},
-            schedule=IterationInterval(1), path=str(out))
-        return sim.run(state)
-
-    model, state = build(VECTOR_INVARIANT)
-    ref = run(None, tmp_path / "ref.csv", state, model)
-
-    mesh = make_mesh(shape=(2, 2))
-    dd = DomainDecomposition(model, mesh, halo=8)
-    fused = run(lambda: dd.fused_stepper(interpret=True),
-                tmp_path / "fused.csv", dd.shard_state(state), model)
-    for name in ("h", "u", "v", "A"):
-        np.testing.assert_allclose(
-            np.asarray(jax.device_get(getattr(fused, name))),
-            np.asarray(getattr(ref, name)),
-            rtol=1e-12, atol=1e-12, err_msg=name)
-    a = np.loadtxt(tmp_path / "ref.csv", delimiter=",", skiprows=1)
-    b = np.loadtxt(tmp_path / "fused.csv", delimiter=",", skiprows=1)
-    np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-12)
-
-
-def test_make_mesh_is_ici_ordered():
-    """make_mesh must order devices via mesh_utils.create_device_mesh
-    (ICI-adjacency on real slices; VERDICT r4 item 7) and keep its
-    shape/subset semantics; make_pod_mesh is the same factory."""
-    from jax.experimental import mesh_utils
-    from swmhd_tpu.parallel import multihost
-
-    mesh = make_mesh(shape=(2, 4))
-    want = mesh_utils.create_device_mesh((2, 4),
-                                         devices=jax.devices()[:8])
-    assert np.array_equal(np.asarray(mesh.devices), np.asarray(want))
-    assert mesh.axis_names == ("x", "y")
-
-    pod = multihost.make_pod_mesh((2, 4))
-    assert np.array_equal(np.asarray(pod.devices),
-                          np.asarray(mesh.devices))
-
-    sub = make_mesh(n_devices=4)
-    assert np.asarray(sub.devices).size == 4
-    assert set(d.id for d in np.asarray(sub.devices).ravel()) <= set(
-        d.id for d in jax.devices()[:4])
+            np.asarray(getattr(ref, name)), rtol=1e-12, atol=1e-12,
+            err_msg=name)
+    for key in ("total_energy", "mass"):
+        assert np.asarray(series[key]).shape == (n_steps,)
+        np.testing.assert_allclose(np.asarray(series[key]),
+                                   np.asarray(ref_series[key]),
+                                   rtol=1e-12, err_msg=key)
+    assert int(out.clock.iteration) == n_steps

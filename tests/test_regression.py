@@ -52,7 +52,7 @@ def test_trajectory_regression(key):
 
 # f32-vs-f64 drift over the same 1000 steps, measured on CPU (SURVEY §7.3
 # hard-part #6): the calibrated bound below is ~3x the observed max drift,
-# so a TPU f32 run can be judged against the f64 fixtures. Regenerated
+# so an f32 run on the GPU can be judged against the f64 fixtures. Regenerated
 # alongside the fixtures (see regenerate()).
 F32_TOL_FILE = os.path.join(FIXTURE_DIR, "f32_tolerance.npz")
 

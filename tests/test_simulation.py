@@ -9,7 +9,7 @@ import pytest
 from swmhd_tpu import (
     Grid, ShallowWaterModel, FPlane, Centered2,
     Simulation, IterationInterval, TimeInterval, Callback,
-    VECTOR_INVARIANT, diagnostics,
+    VECTOR_INVARIANT, CONSERVATIVE, diagnostics,
 )
 from swmhd_tpu.io import FieldWriter, ScalarWriter, FieldTimeSeries, ScalarTimeSeries
 from swmhd_tpu import checkpoint
@@ -143,7 +143,7 @@ class TestCheckpoint:
                                    np.asarray(full.h), rtol=1e-12)
 
     def test_resume_time_interval_writer_no_dup_no_skip(self, tmp_path):
-        """VERDICT r3 weak #6 / item 8: TimeInterval is stateless (derived
+        """TimeInterval is stateless (derived
         from the clock), so a checkpoint-resumed run fires exactly the
         events an uninterrupted run fires after the resume point — no
         duplicated and no missing snapshots."""
@@ -191,43 +191,84 @@ class TestCheckpoint:
             checkpoint.restore(p, other)
 
 
-class TestFusedStepper:
-    def test_simulation_with_fused_stepper_matches_model(self, tmp_path):
-        """Simulation(stepper=FusedStepper) (interpret mode) reproduces the
-        XLA-stepper run — final state AND the in-graph energy series — so
-        the CLI --fused production path is pinned end-to-end."""
-        from swmhd_tpu.ops.fused_step import FusedStepper
-        from swmhd_tpu.io import ScalarSeriesWriter
+def _lorentz_model(formulation, topology, N=32):
+    from swmhd_tpu import (jacobian_lorentz_forcing,
+                           divergence_lorentz_forcing)
+    g = Grid.regular(N, N, (-L / 2, L / 2), (-L / 2, L / 2),
+                     topology=topology, dtype=jnp.float64)
+    forcing = (jacobian_lorentz_forcing() if formulation == VECTOR_INVARIANT
+               else divergence_lorentz_forcing())
+    model = ShallowWaterModel(grid=g, formulation=formulation,
+                              coriolis=FPlane(1.0), forcing=forcing)
+    state = model.initial_state(
+        u=lambda x, y: 2 * y * jnp.exp(-(x**2 + y**2)),
+        v=lambda x, y: -2 * x * jnp.exp(-(x**2 + y**2)),
+        h=1.0,
+        A=lambda x, y: 0.3 * jnp.exp(-((x - 0.5)**2 + y**2))
+        - 0.3 * jnp.exp(-((x + 0.5)**2 + y**2)))
+    return model, state
 
-        def run(stepper, out):
-            model = small_model()
-            state = small_state(model)
-            h0 = state.h
-            sim = Simulation(model, dt=0.01, stop_iteration=6,
-                             stepper=stepper(model) if stepper else None)
-            sim.output_writers["energies"] = ScalarSeriesWriter(
-                fn=lambda m, s: {
-                    "te": diagnostics.energy_report(m, s, h0)
-                          ["total_energy"]},
-                schedule=IterationInterval(1), path=str(out))
-            return sim.run(state)
 
-        ref = run(None, tmp_path / "ref.csv")
-        fused = run(lambda m: FusedStepper(m, tile_x=16, halo=8,
-                                           interpret=True),
-                    tmp_path / "fused.csv")
+@pytest.mark.parametrize("formulation", [VECTOR_INVARIANT, CONSERVATIVE])
+@pytest.mark.parametrize("topology", [("periodic", "periodic"),
+                                      ("periodic", "bounded"),
+                                      ("bounded", "bounded")])
+def test_simulation_series_matches_step_fn(tmp_path, formulation, topology):
+    """Simulation with an in-graph series writer == the model's step_fn
+    called directly: final state, clock, and every series row (row 0 is
+    the initial state)."""
+    import jax
+    from swmhd_tpu.io import ScalarSeriesWriter
+
+    model, state = _lorentz_model(formulation, topology)
+    h0 = state.h
+
+    def diag(m, s):
+        return {"te": diagnostics.energy_report(m, s, h0)["total_energy"]}
+
+    n, dt = 5, 0.01
+    sim = Simulation(model, dt=dt, stop_iteration=n)
+    sim.output_writers["e"] = ScalarSeriesWriter(
+        fn=diag, schedule=IterationInterval(1), path=str(tmp_path / "e.csv"))
+    out = sim.run(state)
+
+    ref, series = jax.jit(model.step_fn(
+        dt, n, diagnostics=lambda s: diag(model, s)))(state)
+    for name in ("h", "u", "v", "A"):
+        np.testing.assert_allclose(np.asarray(getattr(out, name)),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=1e-12, atol=1e-14, err_msg=name)
+    assert int(out.clock.iteration) == n
+    assert float(out.clock.time) == pytest.approx(n * dt, abs=1e-12)
+    rows = ScalarTimeSeries(str(tmp_path / "e.csv"))
+    want = np.concatenate([[float(diag(model, state)["te"])],
+                           np.asarray(series["te"])])
+    np.testing.assert_allclose(rows.te, want, rtol=1e-12)
+    np.testing.assert_array_equal(rows.iteration, np.arange(n + 1))
+
+
+def test_step_fn_chunk_invariance():
+    """step_fn(dt, 6) == step_fn(dt, 4) then step_fn(dt, 2) == three
+    step_fn(dt, 2): the scan chunking the driver picks changes nothing."""
+    import jax
+    model, state = _lorentz_model(VECTOR_INVARIANT, ("periodic", "bounded"))
+    dt = 0.01
+    whole = jax.jit(model.step_fn(dt, 6))(state)
+    two = jax.jit(model.step_fn(dt, 2))
+    split = two(jax.jit(model.step_fn(dt, 4))(state))
+    thirds = two(two(two(state)))
+    for out in (split, thirds):
         for name in ("h", "u", "v", "A"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(fused, name)),
-                np.asarray(getattr(ref, name)),
-                rtol=1e-12, atol=1e-12, err_msg=name)
-        a = np.loadtxt(tmp_path / "ref.csv", delimiter=",", skiprows=1)
-        b = np.loadtxt(tmp_path / "fused.csv", delimiter=",", skiprows=1)
-        np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-12)
+            np.testing.assert_allclose(np.asarray(getattr(out, name)),
+                                       np.asarray(getattr(whole, name)),
+                                       rtol=1e-12, atol=1e-14,
+                                       err_msg=name)
+        assert int(out.clock.iteration) == 6
+        assert float(out.clock.time) == pytest.approx(6 * dt, abs=1e-12)
 
 
 class TestClockPrecision:
-    """Clock.time is f64 independent of the grid dtype (VERDICT r4 item 6):
+    """Clock.time is f64 independent of the grid dtype:
     under f32 production the forcing-hook contract
     (sw_mhd_jacobian_functions.jl:20-26's ``clock`` argument) must hand
     user forcings full-precision time, and in-graph time must not

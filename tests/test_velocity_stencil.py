@@ -1,4 +1,4 @@
-"""VelocityStencil fidelity pin (VERDICT r2 item 2; SURVEY §7.3 hard-part #1).
+"""VelocityStencil fidelity pin (SURVEY §7.3 hard-part #1).
 
 The vector-invariant WENO vorticity flux is the scheme Oceananigans names
 ``WENO5(vector_invariant = VelocityStencil())`` (reference:

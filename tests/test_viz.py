@@ -1,4 +1,4 @@
-"""Smoke tests for the visualisation layer (VERDICT round-1 item 9).
+"""Smoke tests for the visualisation layer.
 
 viz.py reproduces the reference's artifact layouts (4-panel energy figure,
 SWMHD_example.jl:135-165; two-panel A/speed movie, :106-130; quiver
